@@ -1,11 +1,11 @@
-"""FlowDenoising-TPU: TPU-native optical-flow-compensated Gaussian denoising.
+"""FlowDenoising-TPU: optical-flow-compensated Gaussian denoising in JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the FlowDenoising volumetric denoiser
+A ground-up JAX/XLA rebuild of the FlowDenoising volumetric denoiser
 (structure-preserving Gaussian denoising of FIB-SEM volumes, Gonzalez-Ruiz et
 al., Ultramicroscopy 2023).  The reference implementation delegates its heavy
 numerics to OpenCV C++/CUDA (Farneback dense optical flow, bilinear remap) and
 SciPy C (Gaussian taps); this package re-implements the full pipeline as
-batched, jit-compiled TPU programs:
+batched, jit-compiled XLA programs for the GPU:
 
 - ``flowdenoising_tpu.kernels``   -- Gaussian tap builder (reference parity:
   /root/reference/src/flowdenoising.py:34-45).

@@ -14,6 +14,12 @@ import dataclasses
 import enum
 
 
+# Displacement sampler forms ``FlowConfig.sampler`` accepts.  One form
+# remains: bilinear sampling by gathers at the clamped displacement
+# (ops/warp.py), which "auto" names too.
+SAMPLERS = ("auto", "gather")
+
+
 class Boundary(str, enum.Enum):
     """Boundary handling for the filtered axis.
 
@@ -49,23 +55,20 @@ class FlowConfig:
     # Minimum pyramid image extent; levels are clamped so the coarsest image
     # is at least this wide/tall (OpenCV farneback.cpp min_size).
     min_size: int = 32
-    # Compute dtype for flow internals.  float32 matches the reference;
-    # bfloat16 trades a little accuracy for MXU throughput.
+    # Compute dtype for flow internals.  float32 matches the reference.
     dtype: str = "float32"
-    # Precision of the flow computation's inner passes.  "float32" keeps
-    # cv2-level parity.  "bfloat16" is the fast mode: MXU convs/matmuls run
-    # single-pass bf16 AND the Pallas sampling kernels read the reference
-    # expansion as packed bf16 pairs (one gather returns both bilinear
-    # x-neighbors -- half the gather cost).  Output accumulation stays f32.
+    # Ambient matmul precision of the flow computation ("float32" or
+    # "bfloat16"), set with jax.default_matmul_precision around it.  Every
+    # matmul on the path (the pyramid resizes, ops/resize.py) pins HIGHEST
+    # and the blurs are shift-and-add, so at present "bfloat16" does not
+    # change the arithmetic.  Output accumulation is float32 either way.
     precision: str = "float32"
-    # Displacement bound (pixels) for the gather-free bilinear sampling fast
-    # paths.  Results are identical to the exact gather path whenever
-    # |flow| <= max_displacement (XLA's gather runs ~1e8 elem/s on TPU and
-    # would dominate the pipeline).  None selects the exact gather path.
+    # Displacement bound (pixels) of the flow samplers: per-component
+    # displacements are clamped to [-D, D] (identical to unbounded sampling
+    # whenever |flow| <= D).  None samples unbounded.
     max_displacement: int | None = 8
-    # Displacement sampler: "auto" (Pallas kernel on TPU, XLA window
-    # elsewhere), "pallas", "windowed", or exact gather when
-    # max_displacement is None.
+    # Displacement sampler form, one of SAMPLERS.  Unknown names raise
+    # ValueError.
     sampler: str = "auto"
     # How per-tap flows are obtained (the reference solves Farneback anew
     # for every (target, neighbor) tap pair, flowdenoising.py:310-324):
@@ -98,14 +101,15 @@ class FlowConfig:
     # Estimate flows from a lightly Gaussian-pre-smoothed copy of the
     # operands (sigma in pixels, in-plane); the tap WARPS still sample the
     # raw volume.  On noisy inputs the per-pixel flow NOISE (std ~1.4 px on
-    # the bench volume) is what keeps every sampling block's y-shift range
-    # wide -- the noisy first pass costs ~7x per voxel what the already-
-    # denoised Y/X passes cost (BASELINE.md) -- and pre-smoothing the
+    # the bench volume) degrades the estimated flows, and pre-smoothing the
     # ESTIMATION operands collapses it.  0 disables (exact reference
     # operand semantics); quality impact measured in QUALITY.md.
     presmooth: float = 0.0
 
     def __post_init__(self):
+        if self.sampler not in SAMPLERS:
+            raise ValueError(f"unknown sampler {self.sampler!r}: expected "
+                             f"one of {SAMPLERS}")
         if self.tap_mode not in ("solve", "compose"):
             raise ValueError(
                 f"unknown tap_mode {self.tap_mode!r}: expected 'solve' or "
@@ -137,6 +141,6 @@ class FilterConfig:
     boundary: Boundary = Boundary.WRAP
     use_flow: bool = True     # False == -n / --no_OF
     flow: FlowConfig = dataclasses.field(default_factory=FlowConfig)
-    # Output slices are processed in slabs of this many slices to bound HBM
-    # footprint; None = whole axis at once.
+    # Output slices are processed in slabs of this many slices to bound the
+    # device-memory footprint; None = sized by the pipeline's slab model.
     slab_size: int | None = None

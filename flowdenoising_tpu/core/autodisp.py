@@ -1,13 +1,13 @@
 """Automatic ``max_displacement`` selection from the volume's real motion.
 
-The Pallas sampling kernels bound per-tap displacements to
+The flow samplers bound per-tap displacements to
 ``FlowConfig.max_displacement`` (D); motions beyond D are clamped during
 sampling.  The default D=8 covers FIB-SEM-style sub-pixel drift with room to
 spare, but on data with large inter-slice motion it costs quality (QUALITY.md
 membranes tier: parity mode lands 0.6-0.8 dB below the cv2 reference because
 cv2's ``calcOpticalFlowFarneback`` follows displacements unboundedly,
 /root/reference/src/flowdenoising.py:69-79).  Conversely, on calm data a
-smaller D shrinks every solve's sampling halo and shift window.
+smaller D loses nothing.
 
 ``--max_displacement auto`` picks the bound by measuring what clamping
 actually costs, not by raw flow magnitude: optical flow between distant
@@ -33,8 +33,7 @@ probe therefore
   (identity-warp error minus unbounded-warp error) -- i.e. the smallest
   bound that does not lose motions the estimator can genuinely track.
 
-The probe runs on the host CPU backend when one is available so CLI runs
-don't pay a remote-TPU compile for a throwaway 128-px program.
+The probe runs on the host CPU backend (:func:`_probe_device`).
 """
 
 from __future__ import annotations
@@ -42,7 +41,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 import logging
-import os
 
 import numpy as np
 
@@ -70,160 +68,51 @@ _N_PAIRS = 4   # probed slice pairs per axis per distance
 _UNTRACKED_FRAC = 0.9
 
 
-# Bundled AOT seed for the probe programs (built by
-# scripts/seed_probe_cache.py): serialized XLA CPU executables of the two
-# fixed probe shapes, restored into the active persistent compilation
-# cache so the FIRST CLI run of a fresh machine/cache pays ~1 s of cache
-# deserialization instead of ~15-18 s of XLA compiles (round-4 QUALITY.md
-# measured 15.82 s on the first blobs tier).  Entries are keyed by
-# HLO+backend+version hashes, so a stale seed (different jax) simply
-# misses and the normal compile path runs.
-_SEED_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "_probe_seed")
-
-# The program shapes the common volume families map onto, in warm order:
-# cubic / all-planes-fit volumes (3 axes x far/adj = 6 groups in the
-# shared 128^2 bucket) and flat tomogram stacks (Z << Y = X: the axis-0
-# planes bucket square, the four side-view groups bucket 1:4 -- the
-# reference's real-data tier, pamper_me's 160x512x512, is this family),
-# plus their single-group 2x escalation shapes.  Unusual aspect mixes
-# fall outside these and pay a normal compile.
-_COMMON_SHAPES = ((6, (128, 128)), (1, (256, 256)), (2, (128, 128)),
-                  (4, (64, 256)), (1, (128, 512)))
-
-
-def expected_probe_shapes(vol_shape) -> tuple[list, list]:
-    """(main program shapes, escalation shapes) the probe will need for a
-    volume shape: per axis, the far+adj group pair buckets by its plane
-    geometry (groups sharing a bucket run as one batched program).  Lets
-    the CLI warm exactly the right programs from the header alone."""
+def expected_probe_shapes(vol_shape) -> list:
+    """(group count, plane shape) of each probe program a volume shape
+    needs: per axis, the far+adj group pair buckets by its plane geometry
+    (groups sharing a bucket run as one batched program).  Lets the CLI
+    warm exactly the right programs from the header alone."""
     by: dict = {}
-    esc = []
     for axis in range(3):
         plane = tuple(s for i, s in enumerate(vol_shape) if i != axis)
         b = _bucket_shape(plane[0], plane[1], 128)
         by[b] = by.get(b, 0) + 2  # far + adj group
-        e = (1, _bucket_shape(plane[0], plane[1], 256))
-        if e not in esc:
-            esc.append(e)
-    return [(n, s) for s, n in by.items()], esc
+    return [(n, s) for s, n in by.items()]
 
 
-def _probe_manifest() -> dict:
-    import json
-    try:
-        with open(os.path.join(_SEED_DIR, "manifest.json")) as f:
-            return json.load(f)
-    except Exception:
-        return {}
+def _probe_device():
+    """The device the probe programs run on: the host CPU backend.
 
-
-def _probe_cfg_key(flow_cfg: FlowConfig) -> str:
-    """Canonical identity of the probe program for a flow config: only the
-    fields ``_probe_cfg`` does NOT override matter."""
-    p = _probe_cfg(flow_cfg)
-    return (f"l{p.levels}_w{p.winsize}_i{p.iterations}_pn{p.poly_n}"
-            f"_ps{p.poly_sigma}_sc{p.pyr_scale}_ms{p.min_size}")
-
-
-@functools.lru_cache(maxsize=16)
-def _get_probe_program(flow_cfg: FlowConfig, n_groups: int, n_pairs: int,
-                       shape: tuple[int, int], n_ladder: int):
-    """The probe program, loaded from the bundled ``jax.export`` artifact
-    when one matches (skips the 1.4-2 s Python re-trace every fresh process
-    pays) -- else built live by :func:`_probe_program`.  The persistent
-    compilation cache applies to both forms (the seed ships the compiled
-    entries for the exported form)."""
+    Measured on an H100 (CHANGES.md, PR 1): the probe program's XLA
+    compile takes ~40 s for the GPU against ~9 s for the CPU, and warm
+    (persistent cache) runs tie at ~5-6 s, so the CPU is the faster home
+    for this once-per-run program."""
     import jax
-
-    man = _probe_manifest()
-    entry = (man.get("entries", {})
-             .get(f"{n_groups}_{n_pairs}_{shape[0]}x{shape[1]}_{n_ladder}"))
-    if (entry and man.get("cfg") == _probe_cfg_key(flow_cfg)
-            and man.get("jax") == jax.__version__):
-        try:
-            with open(os.path.join(_SEED_DIR, entry), "rb") as f:
-                exported = jax.export.deserialize(bytearray(f.read()))
-            return jax.jit(exported.call)
-        except Exception as e:
-            logging.debug(f"probe export load failed ({e}); tracing live")
-    return _probe_program(flow_cfg, n_groups, n_pairs, shape, n_ladder)
+    return jax.local_devices(backend="cpu")[0]
 
 
-def seed_probe_cache() -> None:
-    """Copy the bundled probe executables into the active compilation
-    cache (no-op when the cache is disabled or entries already exist)."""
-    import shutil
-
-    from flowdenoising_tpu.utils.compile_cache import enable_compilation_cache
-    cache_dir = enable_compilation_cache()
-    if not cache_dir or not os.path.isdir(_SEED_DIR):
-        return
-    try:
-        for f in os.listdir(_SEED_DIR):
-            if not f.endswith("-cache"):
-                continue
-            dst = os.path.join(cache_dir, f)
-            if not os.path.exists(dst):
-                shutil.copyfile(os.path.join(_SEED_DIR, f), dst)
-    except OSError as e:  # pragma: no cover - defensive
-        logging.debug(f"probe cache seeding skipped: {e}")
-
-
-def warm_probe_programs_async(flow_cfg: FlowConfig, vol_shape=None):
-    """Background-compile/load the probe programs, overlapped with
-    whatever the caller does next (the CLI starts this before the volume
-    read so the probe's remaining cold cost hides behind I/O).
-
-    ``vol_shape``: when given (the CLI reads it from the file header),
-    exactly the MAIN programs that volume's buckets need are warmed first
-    (``expected_probe_shapes``); otherwise the cubic-family default leads.
-
-    Returns the thread, which carries a ``main_ready`` threading.Event set
-    once the main program(s) are loaded -- wait on that instead of
-    joining.  Escalation/remaining shapes warm only after the caller sets
-    ``release`` (the probe finished): on few-core hosts an eager
-    escalation trace/compile CONTENDS with the probe itself, and a probe
-    that needs escalation before then just loads it itself (at worst the
-    same signature compiles twice)."""
+def warm_probe_programs_async(flow_cfg: FlowConfig, vol_shape):
+    """Start loading/compiling the probe programs a volume of ``vol_shape``
+    needs (``expected_probe_shapes``; the CLI reads the shape from the file
+    header) in a background thread, so the probe's cold cost overlaps the
+    volume read.  Join the returned thread before probing."""
     import threading
 
-    main_ready = threading.Event()
-    release = threading.Event()
-
-    mains = [_COMMON_SHAPES[0]]
-    if vol_shape is not None and len(vol_shape) == 3:
-        try:
-            mains, _esc = expected_probe_shapes(vol_shape)
-        except Exception:
-            pass
-    rest = [s for s in _COMMON_SHAPES if s not in mains]
+    mains = expected_probe_shapes(vol_shape)
 
     def work():
-        try:
-            import jax
+        import jax
 
-            seed_probe_cache()
-            cpu = jax.local_devices(backend="cpu")[0]
-            with jax.default_device(cpu):
-                for i, (g, shape) in enumerate(mains + rest):
-                    if i == len(mains):
-                        main_ready.set()
-                        release.wait(timeout=600)
-                    prog = _get_probe_program(flow_cfg, g, 4, shape,
-                                              len(_D_LADDER))
-                    t = np.zeros((g * 4,) + shape, np.float32)
-                    b = np.full((g, len(_D_LADDER), 2), 4.0, np.float32)
-                    jax.block_until_ready(prog(t, t, b))
-            main_ready.set()
-        except Exception as e:  # pragma: no cover - warms are best-effort
-            logging.debug(f"probe warm thread: {e}")
-            main_ready.set()
+        with jax.default_device(_probe_device()):
+            for g, shape in mains:
+                prog = _probe_program(flow_cfg, g, _N_PAIRS, shape,
+                                      len(_D_LADDER))
+                t = np.zeros((g * _N_PAIRS,) + shape, np.float32)
+                b = np.full((g, len(_D_LADDER), 2), 4.0, np.float32)
+                jax.block_until_ready(prog(t, t, b))
 
-    th = threading.Thread(target=work, daemon=True,
-                          name="fdtpu-probe-warm")
-    th.main_ready = main_ready
-    th.release = release
+    th = threading.Thread(target=work, name="fdtpu-probe-warm")
     th.start()
     return th
 
@@ -243,15 +132,11 @@ def _probe_pairs(vol: np.ndarray, distance: int, n_pairs: int):
 
 
 def _probe_cfg(flow_cfg: FlowConfig) -> FlowConfig:
-    # sampler="windowed": the probe may run on the host CPU backend while
-    # the default platform is a TPU -- pallas_supported() keys off the
-    # platform, so the "auto" sampler would route update_flow through a
-    # Mosaic kernel the CPU backend cannot execute.  (Sampling itself takes
-    # the exact-gather path regardless: max_displacement=None.)
+    # max_displacement=None: the probe samples with the exact, unbounded
+    # gather -- it measures what clamping costs.
     return dataclasses.replace(
         flow_cfg, max_displacement=None, precision="float32",
-        dtype="float32", tap_mode="solve", use_initial_flow=False,
-        sampler="windowed")
+        dtype="float32", tap_mode="solve", use_initial_flow=False)
 
 
 def _bucket_shape(h: int, w: int, e: int) -> tuple[int, int]:
@@ -309,11 +194,10 @@ def _probe_program(flow_cfg: FlowConfig, n_groups: int, n_pairs: int,
     flow's error, and the identity-warp error.
 
     A single program means a single XLA compile that the persistent
-    compilation cache stores (CPU-backend executables persist too --
-    verified on this host: 12 s cold / 1 s cached).  The round-3 probe was
-    built from dozens of sub-0.5 s eager ops per plane geometry -- below
-    the cache's persistence threshold, so EVERY process re-paid ~20 s of
-    compiles; this is the fix for that first-call cost.
+    compilation cache stores (CPU-backend executables persist too).  A
+    probe built from dozens of sub-0.5 s eager ops per plane geometry
+    would fall below the cache's persistence threshold and re-pay every
+    compile in every process.
     """
     import jax
     import jax.numpy as jnp
@@ -363,8 +247,7 @@ def _run_probe(groups_resized, ladders, flow_cfg: FlowConfig):
         bounds = np.asarray(
             [[[d / groups_resized[i][2], d / groups_resized[i][3]]
               for d in ladders[i]] for i in idxs], np.float32)
-        prog = _get_probe_program(flow_cfg, len(idxs), n_pairs, shape,
-                                  n_ladder)
+        prog = _probe_program(flow_cfg, len(idxs), n_pairs, shape, n_ladder)
         errs, base, ident = (np.asarray(x) for x in prog(t_all, r_all, bounds))
         for j, i in enumerate(idxs):
             out[i] = (errs[j].tolist(), float(base[j]), float(ident[j]))
@@ -409,16 +292,9 @@ def probe_displacement(vol: np.ndarray, cfg: FilterConfig,
     """
     import jax
 
-    seed_probe_cache()
     kernels = get_gaussian_kernels(cfg.sigma)
     far_costs, far_stats, adj_costs, adj_stats = [], [], [], []
     untrackable = []
-    try:
-        cpu = jax.local_devices(backend="cpu")[0]
-    except Exception:
-        # any backend-lookup failure (error type varies across JAX versions)
-        # just means the probe runs on the default device
-        cpu = None
 
     # Collect every probe group first (host-side slicing only).
     groups = []  # (label, ladder, tgt_planes, ref_planes)
@@ -462,10 +338,7 @@ def probe_displacement(vol: np.ndarray, cfg: FilterConfig,
                 adj_stats.append((base, ident))
 
     if groups:
-        if cpu is not None:
-            with jax.default_device(cpu):
-                run()
-        else:
+        with jax.default_device(_probe_device()):
             run()
 
     if not far_costs:

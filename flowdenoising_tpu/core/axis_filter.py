@@ -2,7 +2,7 @@
 
 Two pass kinds, both operating along axis 0 of a (N, H, W) stack (the
 pipeline transposes the volume so the filtered axis is always leading and the
-in-plane dims stay contiguous/minor -- TPU-friendly):
+in-plane dims stay contiguous/minor):
 
 - ``gaussian_pass``: plain separable Gaussian correlation along the axis;
   replaces GaussianDenoising.filter_along_*_slice
@@ -15,7 +15,7 @@ in-plane dims stay contiguous/minor -- TPU-friendly):
   the center in two runs (center-1 .. 0 and center+1 .. end), seeded through
   OPTFLOW_USE_INITIAL_FLOW semantics, exactly like the reference.
 
-TPU-first design notes:
+Design notes:
 - All output slices of a pass are processed as one batch; the tap loop is a
   short static unroll (kernel support <= ~33).
 - The Gaussian image pyramid and polynomial expansion of every slice are
@@ -28,8 +28,6 @@ TPU-first design notes:
 """
 
 from __future__ import annotations
-
-import os
 
 import jax
 import jax.numpy as jnp
@@ -80,7 +78,7 @@ def gaussian_pass_padded(padded: jnp.ndarray, taps: np.ndarray) -> jnp.ndarray:
     ks2 = len(taps) // 2
     padded = padded.astype(jnp.float32)
     n = padded.shape[0] - 2 * ks2
-    # Shift-and-add over the pre-padded stack: K fused reads, VPU-bound.
+    # Shift-and-add over the pre-padded stack: K fused reads, bandwidth-bound.
     out = None
     for k in range(len(taps)):
         term = padded[k:k + n] * jnp.float32(taps[k])
@@ -133,60 +131,35 @@ def of_pass_padded(padded: jnp.ndarray, taps: np.ndarray, flow_cfg: FlowConfig) 
     h, w = padded.shape[1], padded.shape[2]
     vol = padded[ks2:ks2 + n]
 
-    # Prepped channel-first path (Pallas): everything tap-invariant -- the
-    # expansion pyramids, their padded kernel operand forms, the row-tile
-    # plan -- is prepared ONCE per pass; each tap's solve windows into the
-    # full-stack operands at a traced offset (scalar-prefetch index maps),
-    # so the tap loop carries no operand prep at all.
-    use_prepped = False
-    if (flow_cfg.max_displacement is not None
-            and flow_cfg.sampler in ("auto", "pallas")
-            and os.environ.get("FDTPU_PREPPED", "1") != "0"):
-        from flowdenoising_tpu.ops.pallas.sample import pallas_supported
-        use_prepped = pallas_supported()
-
     with matmul_precision(flow_cfg):
         acc0 = vol * jnp.asarray(taps[ks2], dtype)
 
-        est = _estimation_stack(padded, flow_cfg)
-        if use_prepped:
-            from flowdenoising_tpu.ops.farneback import prepped_tap_solver
-            solver = prepped_tap_solver(est, ks2, n, flow_cfg)
-        else:
-            # Pyramid + polynomial expansion of every (padded) slice,
-            # computed once.
-            r_levels = polyexp_pyramid(est, flow_cfg)
-            r0_levels = [r[ks2:ks2 + n] for r in r_levels]
+        # Pyramid + polynomial expansion of every (padded) slice, computed
+        # once.
+        r_levels = polyexp_pyramid(_estimation_stack(padded, flow_cfg),
+                                   flow_cfg)
+        r0_levels = [r[ks2:ks2 + n] for r in r_levels]
 
         # Tap loop as lax.scan: the pyramid solver is traced/compiled once
         # instead of 2*ks2 times (compile-time critical at sigma=2 -> 17 taps).
         # The chained prev_flow is the scan carry (reference semantics:
-        # flowdenoising.py:310-324); channel-first (n, 2, h, w) on the
-        # prepped path, channels-last (n, h, w, 2) otherwise.
+        # flowdenoising.py:310-324), channels-last (n, h, w, 2).
         def body(carry, xs):
             prev_flow, acc = carry
             start, weight = xs
-            if use_prepped:
-                flow = solver(
-                    start, prev_flow if flow_cfg.use_initial_flow else None)
-                flow = flow.astype(dtype)
-                u, v = flow[:, 0], flow[:, 1]
-            else:
-                r1_levels = [
-                    jax.lax.dynamic_slice_in_dim(r, start, n, axis=0)
-                    for r in r_levels
-                ]
-                flow = flow_from_pyramids(
-                    r0_levels, r1_levels, flow_cfg,
-                    prev_flow if flow_cfg.use_initial_flow else None)
-                # Pallas kernels return float32 regardless of compute dtype;
-                # pin the scan carry types.
-                flow = flow.astype(dtype)
-                u, v = flow[..., 0], flow[..., 1]
+            r1_levels = [
+                jax.lax.dynamic_slice_in_dim(r, start, n, axis=0)
+                for r in r_levels
+            ]
+            flow = flow_from_pyramids(
+                r0_levels, r1_levels, flow_cfg,
+                prev_flow if flow_cfg.use_initial_flow else None)
+            # pin the scan carry type to the compute dtype
+            flow = flow.astype(dtype)
+            u, v = flow[..., 0], flow[..., 1]
             neighbor = jax.lax.dynamic_slice_in_dim(padded, start, n, axis=0)
             warped = displace_sample(neighbor, u, v,
-                                     flow_cfg.max_displacement,
-                                     flow_cfg.sampler)
+                                     flow_cfg.max_displacement)
             acc = acc + (warped * weight).astype(dtype)
             return (flow, acc), None
 
@@ -194,9 +167,8 @@ def of_pass_padded(padded: jnp.ndarray, taps: np.ndarray, flow_cfg: FlowConfig) 
             # Zero initial flow, derived from the (possibly shard_map-varying)
             # volume so the scan carry has consistent varying-manual-axes
             # typing inside shard_map.
-            fshape = (n, 2, h, w) if use_prepped else (n, h, w, 2)
-            zref = vol[:, None] if use_prepped else vol[..., None]
-            prev_flow = jnp.zeros(fshape, dtype=dtype) + zref * 0
+            prev_flow = (jnp.zeros((n, h, w, 2), dtype=dtype)
+                         + vol[..., None] * 0)
             xs = (jnp.asarray([ks2 + o for o in offsets], jnp.int32),
                   jnp.asarray(weights, dtype))
             (_, acc), _ = jax.lax.scan(body, (prev_flow, acc), xs)
@@ -211,11 +183,26 @@ def of_pass_padded(padded: jnp.ndarray, taps: np.ndarray, flow_cfg: FlowConfig) 
     return acc.astype(jnp.float32)
 
 
+def compose_tap_step(link, flow, neighbor, acc, weight, d):
+    """One tap of the composed-flow scan: extend the carried flow by the
+    chain link sampled at it (F_j = F_{j-1} + warp(link, F_{j-1})), warp
+    the neighbor slice by F_j and accumulate it with the tap weight.
+
+    link, flow: (n, h, w, 2); neighbor, acc: (n, h, w).  Returns the new
+    (flow, acc) carry in the carry's dtype."""
+    dtype = flow.dtype
+    warped_link = displace_sample(link, flow[..., 0], flow[..., 1], d,
+                                  channels_last=True)
+    flow = (flow + warped_link).astype(dtype)
+    warped = warp_slices(neighbor, flow, d)
+    return flow, acc + (warped * weight).astype(acc.dtype)
+
+
 def _of_pass_composed(padded: jnp.ndarray, taps: np.ndarray,
                       flow_cfg: FlowConfig) -> jnp.ndarray:
     """Composed-flow OF pass (FlowConfig.tap_mode "compose").
 
-    TPU-first redesign of the tap loop: instead of one seeded pyramid solve
+    Redesign of the tap loop: instead of one seeded pyramid solve
     per (target, neighbor) pair (2*ks2 solves per output slice,
     flowdenoising.py:310-324), Farneback runs once per DIRECTION on all
     adjacent slice pairs of the stack, and the flow to a tap at distance j
@@ -239,7 +226,6 @@ def _of_pass_composed(padded: jnp.ndarray, taps: np.ndarray,
     h, w = padded.shape[1], padded.shape[2]
     vol = padded[ks2:ks2 + n]
     d = flow_cfg.max_displacement
-    packed = flow_cfg.precision == "bfloat16"
 
     # Adjacent-pair solves use a tightened displacement bound (adjacent
     # motion is sub-pixel drift; the composed/tap warps keep the full one).
@@ -266,56 +252,6 @@ def _of_pass_composed(padded: jnp.ndarray, taps: np.ndarray,
             adj_bwd = flow_from_pyramids(hi, lo, adj_cfg, None).astype(dtype)
         acc0 = vol * jnp.asarray(taps[ks2], dtype)
 
-        fused_step = False
-        if d is not None and flow_cfg.sampler in (
-                "auto", "pallas", "pallas_xwin"):
-            from flowdenoising_tpu.ops.pallas.sample import pallas_supported
-            fused_step = pallas_supported()
-
-        if fused_step and os.environ.get("FDTPU_COMPOSE_PREPPED",
-                                         "1") != "0":
-            # Prepped tap scan: ALL tap-invariant operand prep (edge pads +
-            # eo deinterleave / bf16 packing of the adjacent-flow and
-            # neighbor stacks, row tiling, carry lane padding) happens once
-            # per pass; each tap's kernel windows into the prepared full
-            # stacks at a traced batch offset.  Bitwise-identical to the
-            # per-tap fused scan below (tests/test_pallas_compose.py).
-            from flowdenoising_tpu.ops.pallas import compose as PC
-            eo = (not packed
-                  and os.environ.get("FDTPU_COMPOSE_EO", "1") != "0")
-            kw = dict(packed=packed, eo=eo,
-                      dyn=os.environ.get("FDTPU_COMPOSE_DYN", "0") == "1")
-            tiles = PC.compose_plan(h, w, d, eo)
-            nb_tiles = PC.prep_compose_src(padded[:, None], d, w,
-                                           tiles=tiles, **kw)
-
-            def run_prepped(offsets, weights, carry, adj, adj_shift):
-                link_tiles = PC.prep_compose_src(
-                    jnp.moveaxis(adj, -1, -3), d, w, tiles=tiles, **kw)
-                xs = (jnp.asarray([ks2 + o for o in offsets], jnp.int32),
-                      jnp.asarray(weights, dtype))
-
-                def body(c, xs_t):
-                    start, wgt = xs_t
-                    c2 = PC.compose_tap_prepped(
-                        link_tiles, nb_tiles, c, tiles, wgt,
-                        start + adj_shift, start, d=d, w=w, dtype=dtype,
-                        **kw)
-                    return c2, None
-
-                carry, _ = jax.lax.scan(body, carry, xs)
-                return carry
-
-            carry = PC.init_compose_carry(vol, taps[ks2], tiles, w, dtype)
-            carry = run_prepped([-j for j in range(1, ks2 + 1)],
-                                [taps[ks2 - j] for j in range(1, ks2 + 1)],
-                                carry, adj_bwd, 0)
-            carry = PC.reset_compose_flow(carry)
-            carry = run_prepped([+j for j in range(1, ks2 + 1)],
-                                [taps[ks2 + j] for j in range(1, ks2 + 1)],
-                                carry, adj_fwd, -1)
-            return PC.finish_compose_carry(carry, w)
-
         def body_of(adj, adj_shift):
             def body(carry, xs):
                 flow, acc = carry
@@ -323,27 +259,8 @@ def _of_pass_composed(padded: jnp.ndarray, taps: np.ndarray,
                 link = jax.lax.dynamic_slice_in_dim(
                     adj, start + adj_shift, n, axis=0)
                 neighbor = jax.lax.dynamic_slice_in_dim(padded, start, n, axis=0)
-                if fused_step:
-                    # Whole tap step in one Pallas program (link warp, flow
-                    # update, neighbor warp, fma) -- ops/pallas/compose.py.
-                    # FDTPU_COMPOSE_DYN=1 opts the sampling loops into the
-                    # dynamic-trip form (wins only on smooth-drift flows;
-                    # see compose_tap_pallas docstring).
-                    from flowdenoising_tpu.ops.pallas.compose import (
-                        compose_tap_pallas)
-                    flow, acc = compose_tap_pallas(
-                        link.astype(jnp.float32), flow.astype(jnp.float32),
-                        neighbor.astype(jnp.float32), acc.astype(jnp.float32),
-                        weight, d, packed=packed,
-                        dyn=os.environ.get("FDTPU_COMPOSE_DYN", "0") == "1")
-                    return (flow.astype(dtype), acc.astype(dtype)), None
-                link_cf = jnp.moveaxis(link, -1, -3)
-                warped_link = displace_sample(
-                    link_cf, flow[..., 0], flow[..., 1], d, flow_cfg.sampler)
-                flow = (flow + jnp.moveaxis(warped_link, -3, -1)).astype(dtype)
-                warped = warp_slices(neighbor, flow, d, flow_cfg.sampler)
-                acc = acc + (warped * weight).astype(dtype)
-                return (flow, acc), None
+                return compose_tap_step(link, flow, neighbor, acc, weight,
+                                        d), None
             return body
 
         def run(offsets, weights, acc, adj, adj_shift):

@@ -3,7 +3,7 @@
 The reference's only extent-scaling device is ``-m`` memory-mapped MRC
 reading in the sequential variant (/root/reference/src/flowdenoising_sequential.py:510-515),
 which still materializes every padded pass array in RAM.  This module
-re-designs that idea TPU-first: the volume lives ON DISK for the whole run
+re-designs that idea for the device: the volume lives ON DISK for the whole run
 and each of the three passes streams axis slabs through the device --
 
     input memmap -> [gather slab + kernel halo along the pass axis,

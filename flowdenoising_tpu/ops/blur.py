@@ -4,11 +4,11 @@ Replaces the pre-pyramid GaussianBlur and the winsize box aggregation inside
 cv2.calcOpticalFlowFarneback (the native C++ engine behind
 /root/reference/src/flowdenoising.py:69-79).
 
-Implementation notes (TPU):
+Implementation notes:
 - Blurs act on the trailing two axes of a batched array (..., H, W).
-- Separable correlation is expressed as pad + depthwise 1-D convolution via
-  ``jax.lax.conv_general_dilated`` over a flattened batch; XLA lowers small
-  spatial convs onto the MXU/VPU efficiently and fuses the paddings.
+- Separable correlation is pad + shift-and-add of the 1-D taps along each
+  axis; XLA fuses the pad, the shifted reads and the multiply-adds into one
+  bandwidth-bound elementwise kernel per axis.
 """
 
 from __future__ import annotations
@@ -55,10 +55,10 @@ def smooth_kernel_for_level(level: int, pyr_scale: float = 0.5) -> np.ndarray:
 def corr1d(img: jnp.ndarray, taps, axis: int, pad_mode: str) -> jnp.ndarray:
     """1-D correlation along ``axis`` as an unrolled shift-and-add.
 
-    For the short taps used here (5..33) this is the TPU-optimal form: XLA
-    fuses the K shifted reads of one padded buffer into a single
-    bandwidth-bound VPU kernel, whereas 1-channel spatial convolutions lower
-    poorly (no contraction dim for the MXU).
+    For the short taps used here (5..33) XLA fuses the K shifted reads of
+    one padded buffer into a single bandwidth-bound elementwise kernel; a
+    1-channel spatial convolution has no contraction dim to give a matrix
+    unit.
     """
     taps = np.asarray(taps, dtype=np.float64)
     r = len(taps) // 2

@@ -1,4 +1,4 @@
-"""Farneback dense optical flow, TPU-native.
+"""Farneback dense optical flow as batched JAX.
 
 Re-implements the algorithm behind ``cv2.calcOpticalFlowFarneback`` -- the
 native C++ engine that accounts for ~90% of the reference pipeline's runtime
@@ -37,7 +37,6 @@ between all Z-adjacent slice pairs of a volume at once.
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -47,8 +46,7 @@ from flowdenoising_tpu.config import FlowConfig
 from flowdenoising_tpu.ops.blur import (
     box_blur_sum, smooth_kernel_for_level, _sep_correlate, corr1d)
 from flowdenoising_tpu.ops.resize import resize_linear, resize_area, pyramid_sizes
-from flowdenoising_tpu.ops.warp import (
-    bilinear_sample, bilinear_displace_windowed, displace_sample)
+from flowdenoising_tpu.ops.warp import displace_sample
 
 # Border down-weighting ramp (OpenCV farneback.cpp FarnebackUpdateMatrices).
 _BORDER_RAMP = np.array([0.14, 0.14, 0.4472, 0.4472, 0.4472], dtype=np.float64)
@@ -82,12 +80,9 @@ def poly_exp_constants(n: int, sigma: float):
     return g, xg, xxg, float(invG[1, 1]), float(invG[0, 3]), float(invG[3, 3]), float(invG[5, 5])
 
 
-def poly_expand(img: jnp.ndarray, n: int = 5, sigma: float = 1.2,
-                channel_first: bool = False) -> jnp.ndarray:
-    """Quadratic polynomial expansion of (..., H, W) -> (..., H, W, 5)
-    (or (..., 5, H, W) with ``channel_first`` -- the layout the Pallas
-    solve kernels consume, produced directly so the hot path never pays a
-    5-channel transpose of the full expansion).
+def poly_expand(img: jnp.ndarray, n: int = 5,
+                sigma: float = 1.2) -> jnp.ndarray:
+    """Quadratic polynomial expansion of (..., H, W) -> (..., H, W, 5).
 
     Channels: [b_y, b_x, a_yy, a_xx, a_xy] in OpenCV's internal scaling.
     Border handling: replicate, both axes.
@@ -113,7 +108,7 @@ def poly_expand(img: jnp.ndarray, n: int = 5, sigma: float = 1.2,
         b1 * ig03 + b5 * ig33,
         b1 * ig03 + b4 * ig33,
         b6 * ig55,
-    ], axis=-3 if channel_first else -1)
+    ], axis=-1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,26 +128,16 @@ def _border_scale_map(h: int, w: int) -> np.ndarray:
 
 
 def update_matrices(r0: jnp.ndarray, r1: jnp.ndarray, flow: jnp.ndarray,
-                    max_displacement: int | None = None,
-                    sampler: str = "auto", packed: bool = False) -> jnp.ndarray:
+                    max_displacement: int | None = None) -> jnp.ndarray:
     """Per-pixel normal-equation entries M = [G11, G12, G22, h1, h2].
 
     r0, r1: (..., H, W, 5) polynomial expansions of target and reference;
     flow: (..., H, W, 2) current displacement (x, y).
-    ``max_displacement`` selects the gather-free windowed sampling fast path;
-    ``packed`` additionally samples r1 at bfloat16 pair precision (Pallas
-    path only -- half the gathers, the documented fast mode).
+    ``max_displacement`` bounds the displacement r1 is sampled at
+    (``ops.warp.displace_sample``).
     """
     h, w = r0.shape[-3], r0.shape[-2]
     dtype = r0.dtype
-
-    if max_displacement is not None and sampler in ("auto", "pallas", "pallas_xwin"):
-        from flowdenoising_tpu.ops.pallas.sample import pallas_supported
-        from flowdenoising_tpu.ops.pallas.update_matrices import (
-            update_matrices_pallas)
-        if pallas_supported():
-            return update_matrices_pallas(r0, r1, flow, max_displacement,
-                                          packed=packed)
 
     dx = flow[..., 0]
     dy = flow[..., 1]
@@ -167,9 +152,7 @@ def update_matrices(r0: jnp.ndarray, r1: jnp.ndarray, flow: jnp.ndarray,
     # Bilinear sample of r1's five channels at the displaced positions
     # (out-of-bounds lanes are masked out below; sampling weights are shared
     # across the channel dim).
-    r1c = jnp.moveaxis(r1, -1, -3)
-    r1s = displace_sample(r1c, dx, dy, max_displacement, sampler)
-    r1s = jnp.moveaxis(r1s, -3, -1)
+    r1s = displace_sample(r1, dx, dy, max_displacement, channels_last=True)
 
     half = jnp.asarray(0.5, dtype)
     quarter = jnp.asarray(0.25, dtype)
@@ -198,16 +181,11 @@ def update_matrices(r0: jnp.ndarray, r1: jnp.ndarray, flow: jnp.ndarray,
     ], axis=-1)
 
 
-def update_flow(m: jnp.ndarray, winsize: int, sampler: str = "auto") -> jnp.ndarray:
+def update_flow(m: jnp.ndarray, winsize: int) -> jnp.ndarray:
     """Box-aggregate M over winsize and solve the per-pixel 2x2 system.
 
     Returns flow (..., H, W, 2) with channel 0 = x displacement.
     """
-    if sampler in ("auto", "pallas", "pallas_xwin"):
-        from flowdenoising_tpu.ops.pallas.sample import pallas_supported
-        from flowdenoising_tpu.ops.pallas.update_flow import update_flow_pallas
-        if pallas_supported():
-            return update_flow_pallas(m, winsize)
     ms = box_blur_sum(jnp.moveaxis(m, -1, -3), winsize)
     ms = jnp.moveaxis(ms, -3, -1) * (1.0 / float(winsize * winsize))
     g11, g12, g22, h1, h2 = (ms[..., i] for i in range(5))
@@ -218,81 +196,24 @@ def update_flow(m: jnp.ndarray, winsize: int, sampler: str = "auto") -> jnp.ndar
 
 
 def _level_displacement(cfg: FlowConfig, level: int) -> int | None:
-    """Windowed-sampling bound at a pyramid level: flows at level k are the
-    full-resolution flow scaled by pyr_scale**k, so the window shrinks with
-    depth (never below 2 to cover iteration updates)."""
+    """Sampling displacement bound at a pyramid level: flows at level k are
+    the full-resolution flow scaled by pyr_scale**k, so the bound shrinks
+    with depth (never below 2 to cover iteration updates)."""
     if cfg.max_displacement is None:
         return None
     d = int(np.ceil(cfg.max_displacement * (cfg.pyr_scale ** level))) + 1
     return max(2, d)
 
 
-# Planes at/below this area run the split XLA iteration instead of the
-# fused Pallas programs: at 32^2 x b=256 the per-program launch floor makes
-# Pallas 2.3x SLOWER than XLA (1.13 vs 2.55 ms for 3 iterations, measured
-# on v5e); at 64^2 Pallas already wins 2x.
-_XLA_LEVEL_AREA = 2048
-# ... but only while the level displacement stays small: the XLA windowed
-# sampler enumerates (2d+2)^2 shifted terms, so its compute AND temp-buffer
-# footprint grow quadratically in d while the Pallas trip loop grows
-# linearly.  At the auto-displacement picks the membranes data needs
-# (D=24-32 -> d_k up to 13 at inner levels) the windowed lattice inside a
-# slab-scan while-body blew HBM (18.7 G requested on the 128x256x256
-# quality tier, 2026-08-21).  d_k <= 4 keeps the D=8 default on the
-# calibrated XLA path and routes large-displacement levels to Pallas.
-_XLA_LEVEL_MAX_D = 4
-
-
-def _small_level_iterate(r0, r1, flow, cfg: FlowConfig, d: int):
-    """Split XLA iteration for tiny pyramid planes (launch-floor regime)."""
-    m = update_matrices(r0, r1, flow, d, "windowed")
-    for i in range(cfg.iterations):
-        flow = update_flow(m, cfg.winsize, "xla")
-        if i < cfg.iterations - 1:
-            m = update_matrices(r0, r1, flow, d, "windowed")
-    return flow
-
-
 def _iterate_level(r0, r1, flow, cfg: FlowConfig, level: int = 0):
     """Fixed-point iterations at one pyramid level (parallel-equivalent form
     of OpenCV's stripe-interleaved sweep; see module docstring)."""
     d = _level_displacement(cfg, level)
-    packed = cfg.precision == "bfloat16"
-    if (d is not None and d <= _XLA_LEVEL_MAX_D
-            and r0.shape[-3] * r0.shape[-2] <= _XLA_LEVEL_AREA
-            and cfg.sampler in ("auto", "pallas", "pallas_xwin")):
-        return _small_level_iterate(r0, r1, flow, cfg, d)
-    if d is not None and cfg.sampler in ("auto", "pallas", "pallas_xwin"):
-        from flowdenoising_tpu.ops.pallas.sample import pallas_supported
-        if pallas_supported():
-            # Fused UM+UF iteration: M never leaves VMEM
-            # (ops/pallas/umuf.py); identical math to the split path below.
-            # "pallas_xwin" samples via static shift windows on both axes
-            # instead of lane gathers (faster for smooth flows).
-            from flowdenoising_tpu.ops.pallas.umuf import umuf_iterate
-            xwin = cfg.sampler == "pallas_xwin"
-            # dyn: y-shift loop with a dynamic trip count over the block's
-            # true active range (@pl.when bodies execute regardless of
-            # their predicate on Mosaic, so the static form pays for all
-            # 2d+2 shifts).  mxu: phase-2 box aggregation as banded 0/1
-            # matmuls on the MXU, fully hidden under the sampling phase.
-            # Together ~1.5x per iteration on v5e (scripts/iter_probe.py).
-            # FDTPU_UMUF_OPTS overrides for A/B benchmarking ("base",
-            # "dyn", "mxu", "dyn,mxu").
-            # "nofuse" reverts to one Pallas program per iteration instead
-            # of all iterations chained inside one program per row tile.
-            kn = _umuf_opts(xwin)
-            if packed:
-                kn["eo"] = 0  # eo is the f32 sampling form
-            return umuf_iterate(r0, r1, flow.astype(r0.dtype),
-                                cfg.iterations, d, cfg.winsize,
-                                packed=packed and not xwin,
-                                xwin=xwin, **kn)
-    m = update_matrices(r0, r1, flow, d, cfg.sampler, packed=packed)
+    m = update_matrices(r0, r1, flow, d)
     for i in range(cfg.iterations):
-        flow = update_flow(m, cfg.winsize, cfg.sampler)
+        flow = update_flow(m, cfg.winsize)
         if i < cfg.iterations - 1:
-            m = update_matrices(r0, r1, flow, d, cfg.sampler, packed=packed)
+            m = update_matrices(r0, r1, flow, d)
     return flow
 
 
@@ -315,12 +236,11 @@ def image_pyramid(img: jnp.ndarray, cfg: FlowConfig) -> list[jnp.ndarray]:
             for k in range(levels + 1)]
 
 
-def polyexp_pyramid(img: jnp.ndarray, cfg: FlowConfig,
-                    channel_first: bool = False) -> list[jnp.ndarray]:
+def polyexp_pyramid(img: jnp.ndarray, cfg: FlowConfig) -> list[jnp.ndarray]:
     """Per-level polynomial expansions (the cacheable heavy half of the flow
     computation -- the denoising pipeline computes this once per slice and
     reuses it for every tap pair)."""
-    return [poly_expand(i, cfg.poly_n, cfg.poly_sigma, channel_first)
+    return [poly_expand(i, cfg.poly_n, cfg.poly_sigma)
             for i in image_pyramid(img, cfg)]
 
 
@@ -350,130 +270,9 @@ def flow_from_pyramids(r0_levels: list[jnp.ndarray], r1_levels: list[jnp.ndarray
     return flow
 
 
-def _umuf_opts(xwin: bool = False):
-    """Pallas iteration-kernel variant knobs (see _iterate_level).
-
-    "rg<K>" sets the dyn y-shift loop's row-group height: the dynamic trip
-    count covers each K-row group's true flow range instead of the whole
-    block's union range.  Default rg64: on real noisy tap flows (drifting-
-    blob volume, flow noise std ~1.4 px) 64-row groups cut full-pass time
-    3-6% (256^3 pass 1.433 -> 1.345 s; 512^2-plane pass 1.575 -> 1.526 s);
-    finer groups (rg8-rg32) pay more per-group window/roll overhead than
-    their extra trip reduction earns, because per-pixel flow NOISE keeps
-    any >=1k-pixel group's range wide (round-2 measurement, scripts/
-    prepped_probe.py with PROBE_FLOW=noisy).
-
-    "eo" (default, f32 path): even/odd-deinterleaved reference sampling
-    with 64-lane phase copies -- one single-vreg gather per bilinear
-    neighbor instead of a two-window gather+select pair; measured -30% on
-    the full 256^3 solve denoise (4.82 -> 3.36 s, r2).  "eonp" is the
-    phase-copy-free form (half the operand HBM of eo): its unaligned lane
-    windows cost a Mosaic relayout per trip that gives back most of the
-    win (4.28 s on the same run) -- kept for HBM-limit regimes.
-    """
-    opts = os.environ.get("FDTPU_UMUF_OPTS", "dyn,mxu,rg64,eo").split(",")
-    rg = 0
-    for o in opts:
-        if o.startswith("rg") and o[2:].isdigit():
-            rg = int(o[2:])
-    eo = 0
-    if "dyn" in opts and not xwin:
-        eo = 1 if "eo" in opts else (2 if "eonp" in opts else 0)
-    return {"dyn": "dyn" in opts and not xwin,
-            "mxu": "mxu" in opts,
-            "rg": rg,
-            "eo": eo,
-            "fused": "nofuse" not in opts}
-
-
-def prepped_tap_solver(padded: jnp.ndarray, interior_start: int, n: int,
-                       cfg: FlowConfig, interpret: bool = False):
-    """Per-pass factory for tap-pair Farneback solves with ALL operand prep
-    amortized (Pallas path only).
-
-    The reference solves one pair at a time inside cv2
-    (/root/reference/src/flowdenoising.py:69-79); the batched rebuild solves
-    all output slices of a pass at once, and THIS factory additionally
-    hoists everything that is tap-invariant out of the tap loop: the
-    channel-first polynomial-expansion pyramids of the whole padded stack,
-    their lane/edge-padded kernel operand forms, and the row-tile plan.
-    Per tap, the returned ``solve(start, init_flow_cf)`` only resizes the
-    seed flow and runs the fused iteration kernels, which window into the
-    full-stack reference operand at traced batch offset ``start`` via
-    scalar-prefetch index maps -- no per-tap operand copies at all.
-
-    padded: (N + 2*ks2, H, W) stack; target = slices
-    [interior_start, interior_start + n).  ``solve`` returns flow
-    (n, 2, H, W) float32, channel 0 = x displacement, numerically identical
-    to ``flow_from_pyramids`` on the corresponding slices.
-    """
-    from flowdenoising_tpu.ops.pallas import umuf as _umuf
-
-    h, w = padded.shape[-2], padded.shape[-1]
-    levels = cfg.clamped_levels(h, w)
-    sizes = pyramid_sizes(h, w, levels, cfg.pyr_scale)
-    packed = cfg.precision == "bfloat16"
-    kn = _umuf_opts()
-    if packed:
-        kn["eo"] = 0  # eo is the f32 sampling form
-    r_levels = polyexp_pyramid(padded, cfg, channel_first=True)
-    preps = []
-    for k, r in enumerate(r_levels):
-        d_k = _level_displacement(cfg, k)
-        hk, wk = sizes[k]
-        if (hk * wk <= _XLA_LEVEL_AREA and d_k is not None
-                and d_k <= _XLA_LEVEL_MAX_D):
-            # tiny level: the split XLA iteration beats the Pallas launch
-            # floor (see _XLA_LEVEL_AREA); keep the full-stack channels-LAST
-            # expansion plus the pre-sliced target form
-            r_cl = jnp.moveaxis(r, 1, -1)
-            r0_cl = jax.lax.slice_in_dim(r_cl, interior_start,
-                                         interior_start + n, axis=0)
-            preps.append(("xla", r_cl, r0_cl, hk, wk, d_k))
-            continue
-        r0_tiles, r1_tiles, tiles = _umuf.prep_tiles_cf(
-            r, d_k, wk, cfg.winsize, cfg.iterations, packed=packed,
-            dyn=kn["dyn"], eo=kn["eo"], fused=kn["fused"],
-            interior=(interior_start, n))
-        preps.append(("pallas", r0_tiles, r1_tiles, tiles, hk, wk, d_k))
-
-    def solve(start, init_flow_cf=None):
-        flow = None
-        for k in range(levels, -1, -1):
-            hk, wk, d_k = preps[k][-3], preps[k][-2], preps[k][-1]
-            if flow is None:
-                if cfg.use_initial_flow and init_flow_cf is not None:
-                    scale = cfg.pyr_scale ** k
-                    flow = (resize_area(init_flow_cf.astype(jnp.float32),
-                                        (hk, wk)) * scale)
-                else:
-                    flow = jnp.zeros((n, 2, hk, wk), jnp.float32)
-            else:
-                flow = resize_linear(flow, (hk, wk)) * (1.0 / cfg.pyr_scale)
-            if preps[k][0] == "xla":
-                _, r_cl, r0_cl, hk, wk, d_k = preps[k]
-                r1_cl = jax.lax.dynamic_slice_in_dim(r_cl, start, n, axis=0)
-                f_cl = jnp.moveaxis(flow, 1, -1)
-                f_cl = _small_level_iterate(r0_cl, r1_cl, f_cl, cfg, d_k)
-                flow = jnp.moveaxis(f_cl, -1, 1).astype(jnp.float32)
-                continue
-            _, r0_tiles, r1_tiles, tiles, hk, wk, d_k = preps[k]
-            fpad = _umuf._lane_pad_flow_cf(flow, wk)
-            fpad = _umuf.umuf_iterate_prepped(
-                r0_tiles, r1_tiles, tiles, fpad, cfg.iterations, d_k,
-                cfg.winsize, h=hk, w=wk, r1_start=start, packed=packed,
-                dyn=kn["dyn"], mxu=kn["mxu"], rg=kn["rg"], eo=kn["eo"],
-                fused=kn["fused"],
-                interpret=interpret)
-            flow = fpad[:, :, :, :wk]
-        return flow
-
-    return solve
-
-
 def matmul_precision(cfg: FlowConfig):
-    """Context manager pinning the MXU pass precision for everything traced
-    inside (pyramid resizes, polyexp convs, box blurs)."""
+    """Context manager setting the ambient matmul precision for everything
+    traced inside (FlowConfig.precision)."""
     return jax.default_matmul_precision(
         "bfloat16" if cfg.precision == "bfloat16" else "float32")
 

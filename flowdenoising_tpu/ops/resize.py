@@ -1,17 +1,17 @@
-"""Separable image resizing as dense matrix products (MXU-friendly).
+"""Separable image resizing as dense matrix products.
 
 The Farneback pyramid in the reference is built by OpenCV's ``resize`` with
 INTER_LINEAR (image/flow down- and up-sampling) and INTER_AREA (initial-flow
 downsampling) -- see the pyramid driver semantics replaced here
 (/root/reference/src/flowdenoising.py:69-79 delegates to cv2's farneback.cpp).
 
-On TPU we express every resample as two dense matmuls
+Every resample is two dense matmuls
 
     out = W_rows @ img @ W_cols^T
 
 with static weight matrices computed on the host in float64 and cast to the
-compute dtype.  Resampling matrices are tiny (<= extent x extent) and ride the
-MXU; batching over slices turns the whole pyramid into large batched matmuls.
+compute dtype.  Resampling matrices are tiny (<= extent x extent); batching
+over slices turns the whole pyramid into large batched matmuls.
 
 Weight conventions match OpenCV:
 - linear: source coordinate ``s = (d + 0.5) * (in/out) - 0.5``, bilinear taps
@@ -79,9 +79,8 @@ def _apply_separable(img: jnp.ndarray, wr: np.ndarray, wc: np.ndarray) -> jnp.nd
 
     Precision is pinned to float32 (HIGHEST) regardless of the ambient
     default_matmul_precision: resize matmuls are a trivial share of the
-    FLOPs, and under a bf16 ambient precision XLA's bf16 resize fusions at
-    large batch sizes have been observed to blow the 16M scoped-VMEM stack
-    budget on v5e (the f32 lowering tiles fine).
+    FLOPs, and a reduced-precision pass (bf16 or TF32) would put rounding
+    error into every pyramid level and flow rescale.
     """
     import jax
     dtype = img.dtype

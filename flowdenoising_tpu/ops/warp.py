@@ -15,125 +15,80 @@ maps, which the reference never uses.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
-def _gather2d(img_flat: jnp.ndarray, yi: jnp.ndarray, xi: jnp.ndarray, width: int) -> jnp.ndarray:
-    """Gather img_flat (..., H*W) at integer (yi, xi) of shape (..., H', W').
+def _take_rows(flat: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
+    """``flat`` (*B, HW, C) gathered at ``idx`` (*B, N) -> (*B, N, C).
 
-    Leading (batch) dims of the index and image broadcast against each other.
-    """
-    idx = yi * width + xi
-    hw = idx.shape[-2:]
-    batch = jnp.broadcast_shapes(img_flat.shape[:-1], idx.shape[:-2])
-    flat_idx = jnp.broadcast_to(idx, batch + hw).reshape(batch + (-1,))
-    src = jnp.broadcast_to(img_flat, batch + img_flat.shape[-1:])
-    out = jnp.take_along_axis(src, flat_idx, axis=-1)
-    return out.reshape(batch + hw)
-
-
-def bilinear_sample(img: jnp.ndarray, fx: jnp.ndarray, fy: jnp.ndarray) -> jnp.ndarray:
-    """Sample ``img`` (..., H, W) at float coords (fx, fy) of shape (..., H', W')
-    with bilinear interpolation and replicate (clamp) borders."""
-    h, w = img.shape[-2], img.shape[-1]
-    x0 = jnp.floor(fx)
-    y0 = jnp.floor(fy)
-    tx = fx - x0
-    ty = fy - y0
-    x0i = jnp.clip(x0.astype(jnp.int32), 0, w - 1)
-    x1i = jnp.clip(x0.astype(jnp.int32) + 1, 0, w - 1)
-    y0i = jnp.clip(y0.astype(jnp.int32), 0, h - 1)
-    y1i = jnp.clip(y0.astype(jnp.int32) + 1, 0, h - 1)
-
-    flat = img.reshape(img.shape[:-2] + (h * w,))
-    v00 = _gather2d(flat, y0i, x0i, w)
-    v01 = _gather2d(flat, y0i, x1i, w)
-    v10 = _gather2d(flat, y1i, x0i, w)
-    v11 = _gather2d(flat, y1i, x1i, w)
-
-    top = v00 + (v01 - v00) * tx
-    bot = v10 + (v11 - v10) * tx
-    return top + (bot - top) * ty
-
-
-def bilinear_displace_windowed(img: jnp.ndarray, u: jnp.ndarray, v: jnp.ndarray,
-                               max_displacement: int) -> jnp.ndarray:
-    """Bilinear sampling at displacements (u, v) without gathers.
-
-    TPU-fast path: XLA lowers ``take_along_axis`` to ~1e8 elem/s scatter-DMA
-    gathers, which dominated the whole pipeline.  Since optical-flow
-    displacements are small and smooth, we instead evaluate the bilinear hat
-    weights against every integer shift in a static window and accumulate
-    shifted reads -- pure VPU FMAs on contiguous slices, which XLA fuses into
-    one bandwidth-bound kernel.
-
-    img: (..., H, W) source (leading dims broadcast against u/v);
-    u, v: (..., H, W) x/y displacements, clamped into [-D, D].
-
-    Exactness: identical to the gather path whenever |u|,|v| <= D; larger
-    true displacements saturate at D (the reference's OOB handling differs
-    only for flows that leave the frame entirely).  Borders are replicate
-    (edge padding), matching cv2.BORDER_REPLICATE for in-window samples.
-    """
-    d = int(max_displacement)
-    h, w = img.shape[-2], img.shape[-1]
-    dtype = img.dtype
-    u = jnp.clip(u, -d, d)
-    v = jnp.clip(v, -d, d)
-    pad = [(0, 0)] * (img.ndim - 2) + [(d + 1, d + 1), (d + 1, d + 1)]
-    p = jnp.pad(img, pad, mode="edge")
-    one = jnp.asarray(1.0, dtype)
-    out = None
-    for sy in range(-d, d + 2):
-        wy = jnp.maximum(jnp.asarray(0.0, dtype), one - jnp.abs(v - sy))
-        row = p[..., d + 1 + sy:d + 1 + sy + h, :]
-        for sx in range(-d, d + 2):
-            wx = jnp.maximum(jnp.asarray(0.0, dtype), one - jnp.abs(u - sx))
-            term = (wy * wx) * row[..., :, d + 1 + sx:d + 1 + sx + w]
-            out = term if out is None else out + term
-    return out
+    One XLA gather whose slice is a whole channel row, so a channels-last
+    source fetches all its channels with one index."""
+    take = lambda s, i: jnp.take(s, i, axis=0, mode="clip")
+    for _ in range(idx.ndim - 1):
+        take = jax.vmap(take)
+    return take(flat, idx)
 
 
 def displace_sample(src: jnp.ndarray, u: jnp.ndarray, v: jnp.ndarray,
                     max_displacement: int | None,
-                    sampler: str = "auto") -> jnp.ndarray:
-    """Sample ``src`` at per-pixel displacements (u, v).
+                    channels_last: bool = False) -> jnp.ndarray:
+    """Sample ``src`` at per-pixel displacements (u, v) of shape (..., H, W).
 
-    src is (..., H, W), or (..., C, H, W) with u/v of shape (..., H, W)
-    (weights shared across C).  Sampler selection:
-    - max_displacement None        -> exact take_along_axis gather
-    - "pallas" / "auto" on TPU     -> fused Mosaic kernel (lane gather)
-    - "windowed" / "auto" off-TPU  -> XLA shift-and-add window
+    src is (..., H, W), or carries a channel dim sharing the sampling
+    weights: (..., C, H, W), or (..., H, W, C) with ``channels_last``.
+    Leading dims of src and (u, v) broadcast.
+
+    ``max_displacement`` None samples unbounded.  With a bound D each
+    displacement component is clamped to [-D, D] first (identical to the
+    unbounded sample whenever |u|, |v| <= D).  Either way the sample is
+    four gathers and three lerps per pixel, which XLA fuses with the
+    surrounding elementwise work.
     """
     has_channels = src.ndim == u.ndim + 1
-    if max_displacement is None:
-        h, w = src.shape[-2], src.shape[-1]
-        gx = jnp.arange(w, dtype=src.dtype)
-        gy = jnp.arange(h, dtype=src.dtype).reshape(h, 1)
-        if has_channels:
-            u = u[..., None, :, :]
-            v = v[..., None, :, :]
-        return bilinear_sample(src, u + gx, v + gy)
-    if sampler == "auto":
-        from flowdenoising_tpu.ops.pallas.sample import pallas_supported
-        sampler = "pallas" if pallas_supported() else "windowed"
-    if sampler in ("pallas", "pallas_xwin"):
-        from flowdenoising_tpu.ops.pallas.sample import bilinear_displace_pallas
-        return bilinear_displace_pallas(src, u, v, max_displacement)
-    if has_channels:
-        u = u[..., None, :, :]
-        v = v[..., None, :, :]
-    return bilinear_displace_windowed(src, u, v, max_displacement)
+    if not has_channels:
+        src = src[..., None]
+    elif not channels_last:
+        src = jnp.moveaxis(src, -3, -1)
+    if max_displacement is not None:
+        u = jnp.clip(u, -max_displacement, max_displacement)
+        v = jnp.clip(v, -max_displacement, max_displacement)
+    h, w, c = src.shape[-3:]
+    batch = jnp.broadcast_shapes(src.shape[:-3], u.shape[:-2])
+    flat = jnp.broadcast_to(src, batch + (h, w, c)).reshape(
+        batch + (h * w, c))
+    fx = jnp.broadcast_to(u + jnp.arange(w, dtype=u.dtype), batch + (h, w))
+    fy = jnp.broadcast_to(v + jnp.arange(h, dtype=v.dtype).reshape(h, 1),
+                          batch + (h, w))
+    x0 = jnp.floor(fx)
+    y0 = jnp.floor(fy)
+    tx = (fx - x0)[..., None]
+    ty = (fy - y0)[..., None]
+    x0 = x0.astype(jnp.int32)
+    y0 = y0.astype(jnp.int32)
+    xa = jnp.clip(x0, 0, w - 1)
+    xb = jnp.clip(x0 + 1, 0, w - 1)
+    ya = jnp.clip(y0, 0, h - 1) * w
+    yb = jnp.clip(y0 + 1, 0, h - 1) * w
+    v00, v01, v10, v11 = (
+        _take_rows(flat, i.reshape(batch + (h * w,))).reshape(
+            batch + (h, w, c))
+        for i in (ya + xa, ya + xb, yb + xa, yb + xb))
+    top = v00 + (v01 - v00) * tx
+    bot = v10 + (v11 - v10) * tx
+    out = top + (bot - top) * ty
+    if not has_channels:
+        return out[..., 0]
+    return out if channels_last else jnp.moveaxis(out, -1, -3)
 
 
 def warp_slices(ref: jnp.ndarray, flow: jnp.ndarray,
-                max_displacement: int | None = None,
-                sampler: str = "auto") -> jnp.ndarray:
+                max_displacement: int | None = None) -> jnp.ndarray:
     """Warp ``ref`` (..., H, W) by ``flow`` (..., H, W, 2); flow channel 0 is
     the X displacement, channel 1 the Y displacement (cv2 convention).
 
-    ``max_displacement`` selects the displacement-bounded gather-free fast
-    paths (see ``displace_sample``); None uses the exact gather path.
+    ``max_displacement`` bounds the per-component displacement (see
+    ``displace_sample``); None samples unbounded.
     """
     return displace_sample(ref, flow[..., 0], flow[..., 1],
-                           max_displacement, sampler)
+                           max_displacement)

@@ -2,7 +2,7 @@
 
 Completes the >single-host-RAM story (SURVEY.md section 5.7): the reference
 reads the whole volume into one process's RAM
-(/root/reference/src/flowdenoising.py:466-475); on a multi-host pod the
+(/root/reference/src/flowdenoising.py:466-475); on a multi-host cluster the
 volume lives on shared storage and no host can (or should) materialize all
 of it.  This module runs the slice-sharded pipeline across
 ``jax.distributed`` processes so that each host only ever touches its own
@@ -14,7 +14,7 @@ Z-range:
   ``make_array_from_process_local_data``.
 - compute: ``parallel.mesh.denoise_sharded`` over the GLOBAL mesh --
   cross-process halo exchange and transpose resharding ride the
-  platform collectives (ICI/DCN on a pod; gloo in the CPU test tier).
+  platform collectives (NCCL between GPUs; gloo in the CPU test tier).
 - output: ``write_mrc_sharded`` -- process 0 sizes the file and writes the
   header (with globally-reduced statistics); every process then writes only
   its addressable shards at their byte offsets into the shared file.
@@ -35,9 +35,7 @@ def init_distributed(coordinator: str, num_hosts: int, host_id: int) -> None:
     """Initialize the jax.distributed runtime (call before any jax use)."""
     import jax
 
-    plats = (os.environ.get("JAX_PLATFORMS", "") + ","
-             + os.environ.get("FDTPU_PLATFORM", "")).lower()
-    if "cpu" in plats:
+    if "cpu" in os.environ.get("JAX_PLATFORMS", "").lower():
         # CPU tier (tests / virtual meshes): gloo carries the collectives
         jax.config.update("jax_cpu_collectives_implementation", "gloo")
     jax.distributed.initialize(coordinator_address=coordinator,

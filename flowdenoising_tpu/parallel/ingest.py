@@ -1,12 +1,12 @@
 """Multi-host sharded volume ingest (SURVEY.md section 7.6).
 
 The reference reads the whole volume into one process's RAM
-(/root/reference/src/flowdenoising.py:466-475).  On a multi-host TPU pod
+(/root/reference/src/flowdenoising.py:466-475).  On a multi-host cluster
 the volume may exceed host RAM and the input file lives on shared storage,
 so each host should read ONLY the Z-range its local devices own and the
-global jax.Array is assembled from per-process shards over DCN
-(``jax.make_array_from_process_local_data``) -- ICI/DCN never carry the
-bulk ingest, just the metadata.
+global jax.Array is assembled from per-process shards
+(``jax.make_array_from_process_local_data``) -- the interconnect never
+carries the bulk ingest, just the metadata.
 
 Degenerate single-process case (this test environment) reduces to a
 memory-mapped partial read + device_put, which is what the tests cover;

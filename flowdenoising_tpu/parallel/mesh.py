@@ -1,17 +1,18 @@
-"""Multi-chip slice-sharded denoising (jax.sharding Mesh + shard_map).
+"""Multi-device slice-sharded denoising (jax.sharding Mesh + shard_map).
 
-TPU-native replacement for the reference's process data-parallelism over
+Replacement for the reference's process data-parallelism over
 /dev/shm shared memory (/root/reference/src/flowdenoising_GPU.py:426-467):
 
 - The volume is sharded along the filtered axis over a 1-D device mesh.
-- Each pass needs only +-ks2 ghost slices per shard; these ride the ICI via
-  ``jax.lax.ppermute`` ring halo exchange (`halo_exchange`).  This is the
-  mesh-collective form of the reviewer solution's interior+halo chunk upload
+- Each pass needs only +-ks2 ghost slices per shard; these ride the
+  interconnect (NVLink between GPUs) via ``jax.lax.ppermute`` ring halo
+  exchange (`halo_exchange`).  This is the mesh-collective form of the
+  reviewer solution's interior+halo chunk upload
   (/root/reference/tests/flowdenoising_reviewer_solution2.py:493-512).
 - Between passes the filtered axis changes (Z -> Y -> X); a transpose with a
   sharding constraint re-shards the volume, which XLA lowers to an
-  all-to-all over ICI -- the distributed analogue of the reference's
-  pass-boundary buffer swap (flowdenoising.py:285-290).
+  all-to-all over the interconnect -- the distributed analogue of the
+  reference's pass-boundary buffer swap (flowdenoising.py:285-290).
 
 Wrap boundary maps exactly onto the ring: device 0's left halo is the last
 device's trailing slices.  Mean/replicate boundaries overwrite the outermost
@@ -127,10 +128,10 @@ def _sharded_pass(padded_pass_fn, mesh: Mesh, vol: jnp.ndarray, taps,
                                    block.shape[0], slab)
 
     mv = jnp.asarray(0.0 if mean_val is None else mean_val, vol.dtype)
-    # check_vma=False: the Pallas iteration kernels inside the pass return
-    # ShapeDtypeStructs without varying-mesh-axes annotations, which the
-    # default vma checker rejects outright.  The pass is plain data-parallel
-    # over AXIS (every output is per-shard), so the check adds nothing here.
+    # check_vma=False: the slab scan's zero-initialized output carry is not
+    # typed as varying over AXIS, which the default vma checker rejects.
+    # The pass is plain data-parallel over AXIS (every output is
+    # per-shard), so the check adds nothing here.
     return jax.shard_map(
         local_fn, mesh=mesh, in_specs=(spec, P()), out_specs=spec,
         check_vma=False,
@@ -263,7 +264,7 @@ def denoise_sharded(vol, cfg: FilterConfig = FilterConfig(), kernels=None,
         local_n = ext // n_dev
         slab = pass_slab(cfg, local_n, t.shape[1], t.shape[2], ks2)
         # Re-shard the new leading (filtered) axis across the mesh; XLA
-        # lowers the layout change to an all-to-all over ICI.
+        # lowers the layout change to an all-to-all over the interconnect.
         t = jax.lax.with_sharding_constraint(
             t, NamedSharding(mesh, P(AXIS, None, None)))
         t = _sharded_pass(padded_pass, mesh, t, taps, pass_boundary, mean,

@@ -1,8 +1,8 @@
 // flowdenoising_tpu native runtime: volume I/O and dtype conversion.
 //
-// TPU-native counterpart of the reference's native support layer: where the
-// reference leans on OpenCV C++ for compute and mrcfile/numpy for I/O, the
-// TPU build keeps compute on-device (JAX/XLA) and moves the host-side
+// Counterpart of the reference's native support layer: where the reference
+// leans on OpenCV C++ for compute and mrcfile/numpy for I/O, this build
+// keeps compute on the device (JAX/XLA) and moves the host-side
 // data path (MRC payload decode/encode, dtype conversion, streaming stats)
 // into this small C++ library, loaded via ctypes.
 //

@@ -1,17 +1,25 @@
 """Persistent XLA compilation cache.
 
-The 512^3 headline pipeline takes minutes to compile cold (one shared
+The per-pass programs take many seconds to compile cold (one shared
 per-pass program, see core/pipeline.py); the reference has no compile step
 at all, so repeated CLI invocations must not re-pay it.  JAX's persistent
 compilation cache stores serialized XLA executables on disk keyed by HLO +
-compile options + backend, making the second run of any configuration
-compile in seconds.
+compile options + backend, so the second run of a configuration loads its
+programs instead of compiling them.  On the GPU the cache directory also
+holds XLA's per-fusion autotuning results, so a new program reuses the
+kernel choices of earlier ones.
 
 Enabled by default for CLI/bench entry points; library users opt in by
-calling :func:`enable_compilation_cache`.  Controlled by env vars:
+calling :func:`enable_compilation_cache`.  Placement:
 
-- ``FDTPU_CACHE_DIR``: cache directory (default ``~/.cache/flowdenoising_tpu/xla``)
-- ``FDTPU_NO_CACHE=1``: disable entirely
+- ``JAX_COMPILATION_CACHE_DIR``, when set, is used as it is (JAX reads it
+  itself; no other directory is set here);
+- otherwise ``.jax_cache/`` at the root of the checkout (listed in
+  ``.gitignore``).  The path is part of the autotune cache's key, so it is
+  fixed: never derived from the home directory, a temporary name, a
+  process id or the time.
+
+``FDTPU_NO_CACHE=1`` disables the cache.
 """
 
 from __future__ import annotations
@@ -19,45 +27,35 @@ from __future__ import annotations
 import logging
 import os
 
-_active_dir: str | None = None
+CHECKOUT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), ".jax_cache")
 
 
-def enable_compilation_cache(cache_dir: str | None = None) -> str | None:
-    """Point JAX's persistent compilation cache at a durable directory.
+def cache_dir() -> str:
+    """The directory the persistent cache uses."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or CHECKOUT_CACHE_DIR
 
-    Idempotent (the first successful call wins); returns the cache dir in
-    use, or None when disabled.
+
+def enable_compilation_cache() -> str | None:
+    """Point JAX's persistent compilation cache at :func:`cache_dir`.
+
+    Idempotent; returns the cache dir in use, or None when disabled.
     """
-    global _active_dir
     if os.environ.get("FDTPU_NO_CACHE"):
         return None
-    if _active_dir is not None:
-        return _active_dir
-    cache_dir = (cache_dir
-                 or os.environ.get("FDTPU_CACHE_DIR")
-                 or os.path.join(os.path.expanduser("~"), ".cache",
-                                 "flowdenoising_tpu", "xla"))
+    path = cache_dir()
     try:
-        os.makedirs(cache_dir, exist_ok=True)
-        import jax
-
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        # Cache every program that took noticeable compile time; the per-pass
-        # programs are few and large, so disk use stays small.
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        # The default 'xla_gpu_per_fusion_autotune_cache_dir' injects a path
-        # CONTAINING cache_dir into debug_options, which is hashed into the
-        # cache key -- so entries only ever hit from the exact directory
-        # they were compiled into (measured: a byte-identical copy of a
-        # warm cache dir under a new name misses 100%).  It is a GPU
-        # autotune cache; irrelevant on CPU/TPU, and disabling it makes
-        # keys location-independent so the bundled probe seed
-        # (core/autodisp.py::seed_probe_cache) works in any cache dir.
-        jax.config.update("jax_persistent_cache_enable_xla_caches", "none")
-        _active_dir = cache_dir
-        logging.debug(f"XLA compilation cache at {cache_dir}")
-        return cache_dir
-    except Exception as e:  # pragma: no cover - defensive
-        logging.warning(f"could not enable compilation cache: {e}")
+        os.makedirs(path, exist_ok=True)
+    except OSError as e:
+        logging.warning(f"could not create compilation cache dir {path}: {e}")
         return None
+    import jax
+
+    jax.config.update("jax_compilation_cache_dir", path)
+    # Cache every program that took noticeable compile time; the per-pass
+    # programs are few and large, so disk use stays small.
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    logging.debug(f"XLA compilation cache at {path}")
+    return path

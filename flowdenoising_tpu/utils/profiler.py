@@ -1,9 +1,9 @@
 """Per-phase wall-clock profiler.
 
-TPU-native successor of the reference's shared-memory accumulators
+Successor of the reference's shared-memory accumulators
 OFE_time / warping_time / convolution_time / transference_time
 (/root/reference/src/flowdenoising_GPU.py:47-53,760-766).  Phases here are
-the pipeline stages that still exist on TPU: host I/O, host<->device
+the pipeline stages that still exist on the device: host I/O, host<->device
 transfer, per-axis pass compute, and compilation.
 """
 

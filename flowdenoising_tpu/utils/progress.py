@@ -2,7 +2,7 @@
 
 Mirrors the reference feedback daemon (flowdenoising.py:292-295): percent =
 100 * completed_units / (Z + Y + X), one count per output slice per pass.
-On TPU whole passes complete atomically, so units advance per slab/pass.
+On the device whole passes complete atomically, so units advance per slab/pass.
 """
 
 from __future__ import annotations

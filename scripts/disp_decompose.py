@@ -77,11 +77,9 @@ def main():
               flush=True)
         v = jax.device_put(jnp.asarray(noisy))
         for d in ds:
-            out = jits[d](v)
-            _ = float(out[0, 0, 0])
+            jax.block_until_ready(jits[d](v))
             t0 = time.perf_counter()
-            out = jits[d](v)
-            _ = float(out[0, 0, 0])
+            out = jax.block_until_ready(jits[d](v))
             dt = time.perf_counter() - t0
             out = np.asarray(out)
             print(f"  D={'unbounded' if d is None else d:>9}: {dt:6.2f}s  "

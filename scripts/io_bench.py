@@ -7,9 +7,8 @@ Measures, at a given volume size (default 512^3):
   - write float32 MRC: native streamed write vs NumPy tofile fallback
 
 The reference delegates all of this to ``mrcfile`` (Python + NumPy,
-/root/reference/src/flowdenoising.py:466-475,541-545); the native path is the
-TPU build's C++ runtime (flowdenoising_tpu/runtime/native).  Results are
-recorded in BASELINE.md.
+/root/reference/src/flowdenoising.py:466-475,541-545); the native path is
+this package's C++ runtime (flowdenoising_tpu/runtime/native).
 
 Usage: python scripts/io_bench.py [--size 512] [--reps 3]
 """

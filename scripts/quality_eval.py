@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Quality parity evaluation: TPU pipeline vs the cv2 reference algorithm.
+"""Quality parity evaluation: the JAX pipeline vs the cv2 reference algorithm.
 
 Round-2 scope (VERDICT "Next round" #8): two volume classes -- smooth blob
 fields AND textured structures (curved membrane sheets + filaments, the
@@ -7,7 +7,7 @@ morphology of FIB-SEM biological volumes the method paper targets) -- at
 multiple noise levels, evaluated for PSNR/SSIM vs clean and cross-PSNR vs
 the cv2 reference output for the parity mode and every fast mode.
 
-Run on the TPU host:
+Run on the GPU host:
   python scripts/quality_eval.py                 # standard tier (32x128x128)
   python scripts/quality_eval.py --big           # adds a 128x256x256 tier
 """
@@ -98,29 +98,24 @@ def eval_tier(pattern, n, hw, noises, sigma, skip_reference, lines):
     from flowdenoising_tpu.core.pipeline import denoise
 
     configs = [
-        ("tpu f32 solve (parity mode)", dict()),
-        ("tpu f32 solve presmooth=1.5", dict(presmooth=1.5)),
-        ("tpu f32 solve presmooth=2.5", dict(presmooth=2.5)),
-        ("tpu f32 compose", dict(tap_mode="compose")),
-        ("tpu bf16 D=8", dict(dtype="bfloat16", precision="bfloat16")),
-        ("tpu bf16 compose symmetric (fastest)",
-         dict(tap_mode="compose", precision="bfloat16",
-              symmetric_adjacent=True)),
-        ("tpu bf16 compose sym presmooth=1.5",
-         dict(tap_mode="compose", precision="bfloat16",
-              symmetric_adjacent=True, presmooth=1.5)),
+        ("f32 solve (parity mode)", dict()),
+        ("f32 solve presmooth=1.5", dict(presmooth=1.5)),
+        ("f32 solve presmooth=2.5", dict(presmooth=2.5)),
+        ("f32 compose", dict(tap_mode="compose")),
+        ("f32 compose symmetric", dict(tap_mode="compose",
+                                       symmetric_adjacent=True)),
+        ("f32 compose sym presmooth=1.5",
+         dict(tap_mode="compose", symmetric_adjacent=True, presmooth=1.5)),
     ]
-    # Unbounded exact-gather row: direct on probe-scale tiers; on the big
-    # tier each DISPATCH must stay short (a whole-volume unbounded pass is
-    # one device program that runs for minutes and crashes the TPU worker
-    # watchdog -- in-jit slabs bound memory, not dispatch length), so the
-    # big-tier row runs through denoise_streamed: a HOST-driven slab loop
-    # whose every dispatch covers 16 output slices ("_stream" key).
+    # Unbounded row: direct on probe-scale tiers; on the big tier it runs
+    # through denoise_streamed, a HOST-driven slab loop whose every
+    # dispatch covers 16 output slices ("_stream" key), to keep each
+    # device program short.
     if n * hw * hw <= 2 ** 21:
-        configs.insert(1, ("tpu f32 solve unbounded (--max_displacement 0)",
+        configs.insert(1, ("f32 solve unbounded (--max_displacement 0)",
                            dict(max_displacement=None)))
     else:
-        configs.insert(1, ("tpu f32 solve unbounded (--max_displacement 0, "
+        configs.insert(1, ("f32 solve unbounded (--max_displacement 0, "
                            "streamed slab 16)",
                            dict(max_displacement=None, _stream=16)))
     # One jitted executable per config, shared across all noise levels
@@ -174,7 +169,7 @@ def eval_tier(pattern, n, hw, noises, sigma, skip_reference, lines):
         rcfg = resolve_auto_displacement(noisy, base_auto)
         t_probe = time.perf_counter() - t0
         key = (rcfg.flow.max_displacement, rcfg.flow.adjacent_displacement)
-        auto_name = f"tpu f32 solve auto (picked D={key[0]}, probe {t_probe:.2f}s)"
+        auto_name = f"f32 solve auto (picked D={key[0]}, probe {t_probe:.2f}s)"
         if key not in auto_jits:
             auto_jits[key] = jax.jit(lambda x, c=rcfg: denoise(x, c))
         run_list = configs + [(auto_name, None)]
@@ -183,11 +178,9 @@ def eval_tier(pattern, n, hw, noises, sigma, skip_reference, lines):
         rows = {}
         for name, over in run_list:
             jfn = auto_jits[key] if over is None else jits[name]
-            out = jfn(v)
-            _ = float(out[0, 0, 0])
+            jax.block_until_ready(jfn(v))
             t0 = time.perf_counter()
-            out = jfn(v)
-            _ = float(out[0, 0, 0])
+            out = jax.block_until_ready(jfn(v))
             dt = time.perf_counter() - t0
             out = np.asarray(out)
             cross = "--" if ref_out is None else f"{psnr(ref_out, out):.2f} dB"
@@ -205,11 +198,11 @@ def eval_tier(pattern, n, hw, noises, sigma, skip_reference, lines):
         ps = resolve_auto_presmooth(noisy, base_ps).flow.presmooth
         sn, ts = _noise_and_spread(noisy)
         rel = sn / max(np.sqrt(max(ts ** 2 - sn ** 2, 1e-12)), 1e-12)
-        pick = ("tpu f32 solve (parity mode)" if ps == 0
-                else "tpu f32 solve presmooth=1.5")
+        pick = ("f32 solve (parity mode)" if ps == 0
+                else "f32 solve presmooth=1.5")
         if pick in rows:
             dt, p, s, cross = rows[pick]
-            lines.append(f"| tpu f32 solve presmooth=auto (rel={rel:.2f} -> "
+            lines.append(f"| f32 solve presmooth=auto (rel={rel:.2f} -> "
                          f"ps={ps}) | {dt:.2f} | {p:.2f} dB | {s:.4f} | "
                          f"{cross} |")
         print("\n".join(lines[-12:]), flush=True)

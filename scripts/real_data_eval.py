@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Real-data quality protocol (docs/REAL_DATA.md section 2).
 
-Evaluates the TPU pipeline against the cv2 reference algorithm on a crop of
+Evaluates the JAX pipeline against the cv2 reference algorithm on a crop of
 a REAL volume (no clean ground truth): cross-PSNR vs the cv2 oracle output,
 structure-preservation stats, and volume-stats parity.
 
@@ -81,11 +81,9 @@ def main():
                            flow=FlowConfig(levels=args.levels,
                                            winsize=args.winsize, **over))
         jfn = jax.jit(lambda x, c=cfg: denoise(x, c))
-        out = jfn(v)
-        _ = float(out[0, 0, 0])
+        jax.block_until_ready(jfn(v))
         t0 = time.perf_counter()
-        out = jfn(v)
-        _ = float(out[0, 0, 0])
+        out = jax.block_until_ready(jfn(v))
         dt = time.perf_counter() - t0
         out = np.asarray(out)
         print(f"| {name} | {dt:.2f} | {psnr(ref_out, out):.2f} dB | "

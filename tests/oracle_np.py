@@ -178,3 +178,25 @@ def farneback_level0(img_prev, img_next, winsize=5, iterations=3,
         if i < iterations - 1:
             M = update_matrices(R0, R1, flow)
     return flow
+
+
+def bilinear_sample(img, fx, fy):
+    """Bilinear sample of img (..., H, W) at float64 coords (fx, fy) of
+    shape (..., H', W') with the same leading dims, replicate borders
+    (cv2.BORDER_REPLICATE)."""
+    fx = np.asarray(fx, np.float64)
+    fy = np.asarray(fy, np.float64)
+    h, w = img.shape[-2:]
+    imgs = np.asarray(img, np.float64).reshape((-1, h, w))
+    fxs = fx.reshape((imgs.shape[0],) + fx.shape[-2:])
+    fys = fy.reshape(fxs.shape)
+    x0 = np.floor(fxs)
+    y0 = np.floor(fys)
+    tx = fxs - x0
+    ty = fys - y0
+    xa, xb = (np.clip(x, 0, w - 1).astype(np.int64) for x in (x0, x0 + 1))
+    ya, yb = (np.clip(y, 0, h - 1).astype(np.int64) for y in (y0, y0 + 1))
+    b = np.arange(imgs.shape[0]).reshape(-1, 1, 1)
+    top = imgs[b, ya, xa] * (1 - tx) + imgs[b, ya, xb] * tx
+    bot = imgs[b, yb, xa] * (1 - tx) + imgs[b, yb, xb] * tx
+    return (top * (1 - ty) + bot * ty).reshape(fx.shape)

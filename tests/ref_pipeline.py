@@ -4,7 +4,7 @@ Re-expresses the math of the reference's two denoisers from the SURVEY spec:
 - wrap-boundary class pipeline (flowdenoising.py FlowDenoising/GaussianDenoising)
 - mean-padded sequential pipeline (flowdenoising_sequential.py OF_filter)
 
-Test-support code; intentionally dependent on cv2 so the TPU build is judged
+Test-support code; intentionally dependent on cv2 so the JAX build is judged
 against the same native kernels the reference uses.
 """
 

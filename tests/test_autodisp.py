@@ -45,55 +45,16 @@ def test_fast_drift_raises_bound():
     assert adj_d <= 6  # adjacent motion is still only ~2 px
 
 
-def test_probe_seed_artifacts_load():
-    """The bundled AOT probe seed (jax.export artifacts + compiled cache
-    entries, scripts/seed_probe_cache.py) must deserialize and execute for
-    the default config -- this is what turns the first `auto` CLI run's
-    probe from ~20 s of trace+compile into ~2.5 s (measured 2026-08-21)."""
-    import jax
-
-    from flowdenoising_tpu.core import autodisp as A
-    from flowdenoising_tpu.utils.compile_cache import (
-        enable_compilation_cache)
-
-    man = A._probe_manifest()
-    assert man.get("entries"), "probe seed missing from the package"
-    if man.get("jax") != jax.__version__:
-        pytest.skip(f"seed built for jax {man.get('jax')}; rerun "
-                    "scripts/seed_probe_cache.py")
-    assert man.get("cfg") == A._probe_cfg_key(FilterConfig().flow)
-    enable_compilation_cache()
-    A.seed_probe_cache()
-    A._get_probe_program.cache_clear()
-    # every bundled shape must deserialize and execute
-    assert len(man["entries"]) == len(A._COMMON_SHAPES)
-    for g, shape in A._COMMON_SHAPES:
-        prog = A._get_probe_program(FilterConfig().flow, g, 4, shape,
-                                    len(A._D_LADDER))
-        t = np.zeros((g * 4,) + shape, np.float32)
-        b = np.full((g, len(A._D_LADDER), 2), 4.0, np.float32)
-        errs, base, ident = prog(t, t, b)
-        assert np.asarray(errs).shape == (g, len(A._D_LADDER))
-        assert np.isfinite(np.asarray(base)).all()
-
-
 def test_expected_probe_shapes():
     """Header-shape -> probe-program-shape prediction must match what the
     probe actually runs: cubic volumes batch all 6 groups in the square
     bucket; flat tomogram stacks (Z << Y = X, the reference's real-data
     geometry) split 2 square + 4 one-to-four groups."""
-    from flowdenoising_tpu.core.autodisp import (
-        _COMMON_SHAPES, expected_probe_shapes)
+    from flowdenoising_tpu.core.autodisp import expected_probe_shapes
 
-    mains, esc = expected_probe_shapes((128, 128, 128))
-    assert mains == [(6, (128, 128))]
-    assert esc == [(1, (256, 256))]
-    mains, esc = expected_probe_shapes((160, 512, 512))
-    assert sorted(mains) == [(2, (128, 128)), (4, (64, 256))]
-    assert (1, (128, 512)) in esc and (1, (256, 256)) in esc
-    # every predicted shape for these two families is bundled in the seed
-    for s in mains + esc:
-        assert s in _COMMON_SHAPES, s
+    assert expected_probe_shapes((128, 128, 128)) == [(6, (128, 128))]
+    assert sorted(expected_probe_shapes((160, 512, 512))) == [
+        (2, (128, 128)), (4, (64, 256))]
 
 
 def test_untrackable_large_drift_floors_at_default():

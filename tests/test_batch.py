@@ -57,11 +57,9 @@ def test_denoise_many_does_not_clobber_device_inputs():
 def test_denoise_many_backpressure_bounds_in_flight(monkeypatch):
     """The in-flight window must actually SYNC: every volume past the
     window is dispatched only after the volume leaving the window completed
-    (sync event observed).  Guards the remote-PJRT workaround in
-    pipeline._sync_result -- if the window stops syncing, the regression
-    only reappears on hardware as HBM exhaustion / deferred-deallocation
-    decay (BASELINE.md 8.2 -> 71 s/vol), so this asserts the ordering
-    structurally."""
+    (sync event observed) in pipeline._sync_result -- if the window stops
+    syncing, the regression only reappears on hardware as device-memory
+    exhaustion, so this asserts the ordering structurally."""
     from flowdenoising_tpu.core import pipeline
 
     events = []

@@ -87,7 +87,7 @@ def test_full_denoise_wrap_matches_reference_exact():
 
 @pytest.mark.slow
 def test_full_denoise_wrap_windowed_default_close():
-    # Default windowed sampling (max_displacement=8): identical except where
+    # Default bounded sampling (max_displacement=8): identical except where
     # wrap-boundary flows exceed the bound; quality-level agreement required.
     vol = make_blob_volume(10, 32, 36, seed=2)
     ks = get_gaussian_kernels((SIGMA,) * 3)

@@ -136,32 +136,22 @@ def test_boundary_window_mean_fill():
 @pytest.mark.slow
 def test_streamed_solve_uses_eo_slab_model(tmp_path, monkeypatch, caplog):
     """The streamed pipeline must size solve-mode slabs with the SAME model
-    as the in-memory pipeline -- including the eo sampling operand growth
-    (a non-eo-modeled slab can come out ~2x too large and OOM in exactly
+    as the in-memory pipeline (an under-modeled slab would OOM in exactly
     the >host-RAM regime --stream exists for)."""
     import logging as _logging
     import flowdenoising_tpu.core.pipeline as pl
     from flowdenoising_tpu.core.pipeline import pass_slab
-    from flowdenoising_tpu.ops.farneback import _umuf_opts
 
     vol = _vol((16, 24, 20), seed=13)
     cfg = FilterConfig(sigma=(1.0, 1.0, 1.0), boundary=Boundary.WRAP,
                        use_flow=True, flow=FlowConfig(levels=0, winsize=5))
     ks2 = 4  # sigma=1.0 -> 9 taps
 
-    # Force the budget small enough that the model binds at this plane size
-    # -- but large enough that the NON-eo model stays off the _SLAB_FLOOR
-    # (both models flooring at 8 would void the binds-tighter comparison).
-    monkeypatch.setattr(pl, "_AUTO_SLAB_BUDGET", 24 * 20 * 4 * 60 * 20)
+    # Force the budget small enough that the model binds at this plane size.
+    monkeypatch.setattr(pl, "_CPU_SLAB_BUDGET",
+                        int(24 * 20 * pl._BYTES_PER_VOXEL * 20))
     expect = pass_slab(cfg, 16, 24, 20, ks2)
     assert expect is not None and expect < 16
-    if _umuf_opts()["eo"]:
-        # eo model must bind TIGHTER than the non-eo one at equal budget.
-        # Compared at a longer axis (n=64): the 16-slice stream axis
-        # balances any slab in [8, 15] down to 8, masking the difference.
-        non_eo = pl._auto_slab(64, 24, 20, ks2, True, "solve", False)
-        eo_big = pl._auto_slab(64, 24, 20, ks2, True, "solve", True)
-        assert (eo_big or 64) < (non_eo or 64)
 
     ref = np.asarray(denoise(jnp.asarray(vol), cfg))
     with caplog.at_level(_logging.INFO):
